@@ -1,7 +1,8 @@
-"""Benchmark: k-mer counting throughput AND sPCR wall time on one chip.
+"""Benchmark: k-mer counting throughput AND sPCR wall time on one device.
 
 Prints ONE JSON line:
-  {"metric": "kmers_per_sec_per_chip", "value": N, "unit": "kmer/s",
+  {"device": {"platform": P, "kind": K, "count": C},
+   "metric": "kmers_per_sec_per_chip", "value": N, "unit": "kmer/s",
    "vs_baseline": N, "spcr_wall_s": S, "spcr_genes_ok": G,
    "mirror_export_s": M, "e2e_wall_s": E, "e2e_vs_baseline": R,
    "e2e_8m_wall_s": E8, "e2e_8m_vs_baseline": R8, ...}
@@ -9,8 +10,8 @@ Prints ONE JSON line:
 Baseline: the reference counts 131,779,117 k-mer events from 1M
 150bp reads in 22.5 s wall INCLUDING its full 7-gene cnidaria sPCR
 pass (169.1 s at 8M reads), on an aarch64 12-core at 8 threads —
-5.857e6 kmer/s (BASELINE.md, benchmarks/benchmark_results/
-cnidaria_*:23,110-112,302).
+5.857e6 kmer/s (BASELINE.md, from the reference's own committed
+benchmark results).
 
 The default (sorted backend) run reproduces that workload shape:
 1M synthetic 150bp reads at ~7.5x coverage over a genome with the
@@ -26,10 +27,16 @@ count + prep + sPCR vs the reference's 22.5 s. A second timed config
 at 8M reads (the reference's largest committed row, 169.1 s) reports
 e2e_8m_wall_s / e2e_8m_vs_baseline.
 
-Process layout: a thin orchestrator (no JAX) spawns the measured run
-as one subprocess, then a --cache-evidence subprocess that replays
-the warmup stages in a FRESH process and reports persistent
-compile-cache hits/misses and the warm-process warmup wall.
+Every result names the device it ran on (platform, device kind,
+device count). The bench refuses to run on the CPU unless
+``JAX_PLATFORMS=cpu`` was set explicitly (``--quick`` smoke runs), so
+a missing accelerator never yields a CPU number under a device name.
+
+Process layout: a thin orchestrator (no JAX) runs the measured pass as
+one subprocess, then a --cache-evidence subprocess that replays the
+warmup stages in a FRESH process and reports persistent compile-cache
+hits/misses and the warm-process warmup wall. The subprocesses run in
+sequence, so one process at a time holds the device.
 """
 
 from __future__ import annotations
@@ -52,15 +59,35 @@ def _stage(msg: str) -> None:
 
 
 def _hbm(tag: str) -> None:
-    """HBM-in-use at a stage boundary (localizes RESOURCE_EXHAUSTED)."""
-    try:
-        import jax
+    """Device memory in use at a stage boundary (localizes
+    RESOURCE_EXHAUSTED). The CPU backend keeps no memory statistics;
+    an accelerator that reports none is an error."""
+    import jax
 
-        ms = jax.devices()[0].memory_stats() or {}
-        _stage(f"  hbm[{tag}]: {ms.get('bytes_in_use', 0) / 1e9:.2f} GB "
-               f"(peak {ms.get('peak_bytes_in_use', 0) / 1e9:.2f})")
-    except Exception:
-        pass
+    dev = jax.devices()[0]
+    ms = dev.memory_stats()
+    if ms is None:
+        if dev.platform == "cpu":
+            return
+        raise RuntimeError(f"{dev.device_kind} reports no memory_stats()")
+    _stage(f"  device mem[{tag}]: {ms['bytes_in_use'] / 1e9:.2f} GB "
+           f"(peak {ms['peak_bytes_in_use'] / 1e9:.2f})")
+
+
+def _device() -> dict:
+    """The device this process measures on. Refuses the CPU unless
+    JAX_PLATFORMS=cpu was set explicitly."""
+    from sharkmer_tpu import device
+
+    d = device.describe()
+    _stage(f"device: platform={d['platform']} kind={d['kind']} "
+           f"count={d['count']}")
+    if d["platform"] == "cpu" and os.environ.get("JAX_PLATFORMS") != "cpu":
+        raise SystemExit(
+            "bench: no accelerator found (JAX fell back to the CPU); set "
+            "JAX_PLATFORMS=cpu to run on the CPU deliberately"
+        )
+    return d
 
 BASELINE_KMERS_PER_SEC = 131_779_117 / 22.5
 BASELINE_E2E_WALL_S = 22.5   # reference: 1M-read cnidaria run, count+sPCR
@@ -309,11 +336,9 @@ def _warm_scale_shapes(args, make_store):
     never on values) with the noisy workload's two-component
     structure: a ~19% stream of error singletons (1-(1-err)^k) over a
     high-duplication genome pool, reproducing the production per-drain
-    run occupancies and the master's partition trajectory. Measured
-    (profile_scale.py): the same pass with a cold program set costs
-    220+ s of mid-run remote compiles — the warmup pays that bill
-    once, off the clock, exactly like the 1M warmup does for the
-    shallow shapes."""
+    run occupancies and the master's partition trajectory. The warmup
+    pays the compile bill of these shapes once, off the clock, exactly
+    like the 1M warmup does for the shallow shapes."""
     import gc
 
     import jax
@@ -372,6 +397,7 @@ def run_bench(args):
     """The measured pass (subprocess): warmup compiles every count +
     sPCR-prep shape, then the timed 1M config and the timed 8M config
     run back to back through the production store."""
+    dev = _device()
     make_store = _make_store_factory(args)
     counters = _count_cache_events()
 
@@ -420,6 +446,7 @@ def run_bench(args):
     kmers_per_sec = total_kmers / count_wall
     e2e_wall = count_wall + prep_wall + spcr_wall
     result = {
+        "device": dev,
         "metric": "kmers_per_sec_per_chip",
         "value": round(kmers_per_sec),
         "unit": "kmer/s",
@@ -443,9 +470,8 @@ def run_bench(args):
             batches8, n_batches8 = _build_batches(args, args.reads_large)
             _stage("timed: count pass (8M)")
             t0 = time.perf_counter()
-            # consume=True: the 8M row runs within ~1 GB of HBM
-            # headroom; freeing each 40 MB batch after ingest keeps the
-            # merge workspace from tipping over
+            # consume=True: free each 40 MB batch after ingest so the
+            # batches do not sit in device memory beside the merges
             store8, n_unique8 = _one_pass(
                 make_store, batches8, consume=True
             )
@@ -465,7 +491,7 @@ def run_bench(args):
                 args, store8, args.reads_large
             )
             if counters["writes"] > w0:
-                # a cache WRITE inside the timed row = a mid-run remote
+                # a cache WRITE inside the timed row = a mid-run
                 # compile the deep-shape warmup missed; surface it
                 _stage(
                     f"  WARNING: {counters['writes'] - w0} compile(s) "
@@ -496,7 +522,8 @@ def run_cache_evidence(args):
     """Fresh-process warmup replay: every stage below was compiled by
     the measured subprocess moments ago, so a healthy persistent cache
     serves ALL of it as cache hits. Reports per-stage walls and the
-    hit/write counts (BENCH stderr tail carries the evidence)."""
+    hit/write counts (the stderr tail carries the evidence)."""
+    _device()
     counters = _count_cache_events()
     make_store = _make_store_factory(args)
     from sharkmer_tpu.pcr.counts import FilteredTable

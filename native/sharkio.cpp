@@ -1,7 +1,7 @@
 // sharkio — native FASTQ parse + 2-bit-code encode loader.
 //
 // The reference's ingestion hot path is native (Rust, io.rs:271-361 +
-// encoding.rs); this is the TPU build's equivalent: a C++ loader that
+// encoding.rs); this is this build's equivalent: a C++ loader that
 // streams FASTQ (plain or gzip via zlib), validates records, and
 // encodes bases directly into the fixed-width uint8 code batches the
 // device encoder consumes (A/C/G/T -> 0..3, N -> 4, pad -> 5).

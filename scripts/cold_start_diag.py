@@ -2,10 +2,13 @@
 every kernel is a persistent-cache HIT?
 
 Times each first-call stage of the count path separately, plus backend
-init and data upload, so the ~10 s/hit mystery from the r4 evidence
-tail can be attributed (tracing vs cache load vs executable upload vs
-data transfer vs device run).
+init and data upload, so a fresh process's start-up cost can be
+attributed (tracing vs cache load vs executable upload vs data
+transfer vs device run).
+
+Usage: python scripts/cold_start_diag.py
 """
+import os
 import sys
 import time
 
@@ -17,7 +20,7 @@ def stamp(msg):
           flush=True)
 
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np  # noqa: E402
 
 stamp("numpy imported")

@@ -1,8 +1,9 @@
-"""On-chip microbenchmark: decompose the reach-closure per-level cost.
+"""Device microbenchmark: decompose the reach-closure per-level cost.
 
 Times a while_loop of N fixed iterations whose body is a subset of the
 production narrow-phase level body (ops/reach.py _closure_run), against
-a realistic single-partition table. Reports ms/level for:
+a single full partition (2^26 rows, the partition width of a 2^27
+drain). Every timing ends in ``block_until_ready``. Reports ms/level:
   full        - the production body (lookup + process + mark + log)
   lookup      - probe gathers only
   process     - dedup argsorts only (lookup stubbed to arange)
@@ -18,10 +19,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from sharkmer_tpu import device
 from sharkmer_tpu.ops import reach as R
 
+print(f"device {device.describe()}", flush=True)
 K = 21
-N_ROWS = 1 << 25
+N_ROWS = 1 << 26
 F_NARROW = 16
 LEVELS = 512
 

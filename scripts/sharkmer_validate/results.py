@@ -41,7 +41,7 @@ def build_result(
         "date": datetime.now().strftime("%Y-%m-%d"),
         "parameters": parameters,
         "blast_mode": blast_mode,
-        "backend": "jax-tpu",
+        "backend": "jax",
     }
     if sweep_label:
         result["sweep_label"] = sweep_label

@@ -35,26 +35,17 @@ def _panel_params(panel_path: Path):
     return primers
 
 
-def synthesize_panel_fastq(
-    panel_path: Path,
-    out_path: Path,
-    n_reads: int,
-    read_len: int = 150,
-    genome_mbp: float = 20.0,
-    error_rate: float = 0.01,
-    seed: int = 0,
-) -> Path:
-    """Write ``n_reads`` synthetic reads covering ``panel_path``'s
-    amplicons to ``out_path`` (gzip FASTQ). Idempotent per path."""
+def _panel_genome(panel_path: Path, genome_mbp: float, rng):
+    """Random code genome with every primer pair's amplicon embedded 8
+    times (IUPAC positions realized concretely). Returns (genome,
+    {gene_name: amplicon sequence})."""
     from sharkmer_tpu.pcr.params import IUPAC
 
-    out_path = Path(out_path)
-    if out_path.exists():
-        return out_path
-    out_path.parent.mkdir(parents=True, exist_ok=True)
-
-    rng = np.random.default_rng(seed)
     genome = rng.integers(0, 4, size=int(genome_mbp * 1e6), dtype=np.uint8)
+    lut = np.zeros(256, np.uint8)
+    for i, b in enumerate("ACGT"):
+        lut[ord(b)] = i
+    amplicons = {}
     pos = 1000
     for p in _panel_params(panel_path):
         fwd = "".join(
@@ -70,16 +61,43 @@ def synthesize_panel_fastq(
             rng.choice(list("ACGT"), size=total - len(fwd) - len(rev))
         )
         amp = fwd + insert + "".join(_COMP[b] for b in reversed(rev))
-        codes = np.frombuffer(amp.encode(), np.uint8)
-        lut = np.full(256, 0, np.uint8)
-        for i, b in enumerate("ACGT"):
-            lut[ord(b)] = i
-        codes = lut[codes]
+        amplicons[p.gene_name] = amp
+        codes = lut[np.frombuffer(amp.encode(), np.uint8)]
         # 8 copies: amplicon k-mers sit well above min_count at the
         # sweep's genome-wide coverages, like real high-copy targets
         for _ in range(8):
             genome[pos : pos + len(codes)] = codes
             pos += len(codes) + 2000
+    return genome, amplicons
+
+
+def embedded_amplicons(panel_path: Path, genome_mbp: float = 20.0,
+                       seed: int = 0) -> dict[str, str]:
+    """{panel gene name: amplicon} that ``synthesize_panel_fastq``
+    embeds for the same panel, genome size and seed."""
+    return _panel_genome(
+        panel_path, genome_mbp, np.random.default_rng(seed)
+    )[1]
+
+
+def synthesize_panel_fastq(
+    panel_path: Path,
+    out_path: Path,
+    n_reads: int,
+    read_len: int = 150,
+    genome_mbp: float = 20.0,
+    error_rate: float = 0.01,
+    seed: int = 0,
+) -> Path:
+    """Write ``n_reads`` synthetic reads covering ``panel_path``'s
+    amplicons to ``out_path`` (gzip FASTQ). Idempotent per path."""
+    out_path = Path(out_path)
+    if out_path.exists():
+        return out_path
+    out_path.parent.mkdir(parents=True, exist_ok=True)
+
+    rng = np.random.default_rng(seed)
+    genome, _ = _panel_genome(panel_path, genome_mbp, rng)
 
     col = np.arange(read_len)[None, :]
     qual = b"I" * read_len

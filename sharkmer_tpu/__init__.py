@@ -1,34 +1,33 @@
-"""sharkmer_tpu — a TPU-native k-mer counting and in silico PCR framework.
+"""sharkmer_tpu — k-mer counting and in silico PCR on an accelerator.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
-caseywdunn/sharkmer (reference: /root/reference, v3.1.0):
+A JAX/XLA re-design of the capabilities of caseywdunn/sharkmer
+(reference v3.1.0):
 
 1. Canonical k-mer counting with 2-bit rolling encoding
    (reference: src/kmer/encoding.rs:332, src/kmer/counting.rs:113).
    Here: reads are fixed-width uint8 code batches; a vectorised window
-   encoder emits canonical k-mers which are aggregated into an
-   HBM-resident open-addressed count table (ops/encoding.py,
-   ops/hashtable.py).
+   encoder emits canonical k-mers, which a sort-based device count
+   store aggregates (ops/encoding.py, ops/sorted_store.py).
 
 2. Incremental ("chunked") counting with per-chunk histogram snapshots
    (reference: src/io.rs:977-1161). Here: reads are grouped by
    round-robin chunk id, ingested chunk by chunk, and the histogram is
-   snapshotted from the device table via a clipped bincount
-   (ops/histogram.py).
+   snapshotted from the device table.
 
 3. In silico PCR (sPCR): primer-seeded de Bruijn graph extension over
    the count table (reference: src/pcr/). Here: the graph lives on
    host (python dicts — graphs are <=500k nodes), while every hot
-   lookup (primer scans, frontier candidate probes) is a batched
-   device kernel against the count table (pcr/).
+   lookup (primer scans, reachability prefetch of the walk's
+   neighbourhood) is a batched device kernel against the count table
+   (pcr/, ops/reach.py).
 
-The count table shards across a `jax.sharding.Mesh` for multi-chip /
-multi-host runs (parallel/sharded_table.py): scatter-adds become
-owner-routed local inserts, histograms merge with psum, lookups fan
-out shard-local and combine with a max-reduce.
+The count table shards across a `jax.sharding.Mesh` for multi-device
+runs (parallel/): inserts route to the owning shard, histograms merge
+with psum, lookups fan out shard-local and combine.
 
-JAX x64 must be enabled before any jax import downstream of this
-package (k-mers are 2k-bit values packed in uint64, k <= 31).
+Device-dependent sizes come from one table keyed by device kind
+(device.py). JAX x64 must be enabled before any jax import downstream
+of this package (k-mers are 2k-bit values packed in uint64, k <= 31).
 """
 
 import os
@@ -38,28 +37,15 @@ import jax
 # k-mers are packed 2 bits/base into uint64 (k <= 31 -> up to 62 bits).
 jax.config.update("jax_enable_x64", True)
 
-# Mosaic's kernel-lowering walks nested jaxprs recursively (~3 Python
-# frames per traversed eqn); the reach probe kernel's DMA loops sit
-# right at CPython's default 1000-frame limit, so whether a trace
-# succeeds would otherwise depend on the caller's stack depth.
-import sys as _sys
-
-_sys.setrecursionlimit(max(_sys.getrecursionlimit(), 20_000))
-
-# Persistent XLA compilation cache: without it every CLI invocation pays
-# the full (remote) compile cost again. Honour an explicit
-# JAX_COMPILATION_CACHE_DIR; otherwise default to a per-user cache dir.
+# Persistent XLA compilation cache. JAX reads JAX_COMPILATION_CACHE_DIR
+# itself when it is set; otherwise the cache lives at one fixed path
+# inside the checkout (the path is part of what makes a later run hit).
+CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    ".jax_cache",
+)
 if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
-    _cache_dir = os.path.join(
-        os.environ.get("XDG_CACHE_HOME", os.path.expanduser("~/.cache")),
-        "sharkmer_tpu",
-        "jax_cache",
-    )
-    try:
-        os.makedirs(_cache_dir, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", _cache_dir)
-    except OSError:  # read-only home: run without a persistent cache
-        pass
+    jax.config.update("jax_compilation_cache_dir", CACHE_DIR)
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
 
 __version__ = "0.1.0"

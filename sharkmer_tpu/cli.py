@@ -50,7 +50,8 @@ Output files:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="sharkmer",
-        description="A TPU-native tool for kmer counting and in silico PCR (sPCR)",
+        description="A tool for kmer counting and in silico PCR (sPCR) on an "
+                    "accelerator",
         epilog=EPILOG,
         formatter_class=argparse.RawDescriptionHelpFormatter,
     )
@@ -125,13 +126,13 @@ def build_parser() -> argparse.ArgumentParser:
                    default=DEFAULT_TIP_COVERAGE_FRACTION, help=argparse.SUPPRESS)
     p.add_argument("--read-threading", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--paired", action="store_true", help=argparse.SUPPRESS)
-    # device/sharding knobs (TPU build additions)
+    # device/sharding knobs (additions to the reference CLI)
     p.add_argument("--table-capacity", type=int, default=None,
                    help=argparse.SUPPRESS)
     p.add_argument("--n-shards", type=int, default=1,
                    help="Shard the count table over N devices (1 = single chip)")
     p.add_argument("--backend", choices=["sorted", "hash"], default="sorted",
-                   help="Count-table backend: sorted runs (TPU-fast) or "
+                   help="Count-table backend: sorted runs (default) or "
                         "open-addressed hash table")
     # hidden: sPCR lookup strategy. auto = device reach-prefetch on the
     # sorted backend (table stays on device; only the walk's own

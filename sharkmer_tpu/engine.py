@@ -15,12 +15,12 @@ Pipeline parity with the reference
   (io.rs:1042-1047), histogram totals match the table
   (io.rs:1120-1132).
 
-TPU-native shape: the reference merges per-chunk CPU hash maps into a
+Device shape: the reference merges per-chunk CPU hash maps into a
 master map one entry at a time; here "merging chunk j" concatenates
 chunk j's sorted runs onto the master and re-aggregates (one fused
-device kernel) — the per-chunk snapshot is a clipped bincount over
-the merged counts (one HBM sweep). Chunked ingest STREAMS: each chunk
-owns its own device table fed as reads arrive (host holds at most
+device kernel) — the per-chunk snapshot is a clipped histogram over
+the merged counts (one sweep of device memory). Chunked ingest
+STREAMS: each chunk owns its own device table fed as reads arrive (host holds at most
 ``CHUNK_PENDING_READS`` reads per chunk, independent of the total read
 count — reference parity with io.rs:355-361, which streams into
 per-chunk tables), and consolidation folds the chunk tables into the
@@ -29,7 +29,6 @@ master in chunk order via ``merge_from``.
 
 from __future__ import annotations
 
-import logging
 from dataclasses import dataclass, field
 from typing import Iterable, Iterator
 
@@ -38,8 +37,6 @@ import numpy as np
 
 from .ops import encoding
 from .ops.hashtable import KmerTable
-
-log = logging.getLogger("sharkmer")
 
 N_READS_PER_BATCH = 1000  # round-robin chunk assignment granularity
 DEVICE_BATCH_READS = 1 << 16  # reads per device ingest call
@@ -77,16 +74,7 @@ class CountingEngine:
         if self.n_shards > 1:
             from .parallel.sharded_table import make_mesh
 
-            self._mesh = make_mesh(self.n_shards)
-            if self._mesh.devices.size < self.n_shards:
-                # mesh degrades to the devices that exist; the sharded
-                # store semantics are identical at any shard count
-                log.warning(
-                    "--n-shards %d requested but only %d device(s) "
-                    "available; sharding over %d",
-                    self.n_shards, self._mesh.devices.size,
-                    self._mesh.devices.size,
-                )
+            self._mesh = make_mesh(self.n_shards)  # raises if too few devices
             local = max(1 << 10, self.initial_capacity // self.n_shards)
             # round to power of two
             local = 1 << (local - 1).bit_length()

@@ -17,10 +17,9 @@ reference's dual-path testing pattern (encoding.rs:4-23):
   Instead of the reference's sequential rolling frame (a loop-carried
   dependency), each output position is built by OR-ing k statically
   shifted slices of the code array — k vector ops over the whole
-  batch, fully parallel on the VPU, no sequential scan. The frames are
-  assembled in u32 *planes* (TPUs emulate every u64 lane op as a u32
-  pair, so plane-wise construction + a lexicographic plane compare
-  halves the vector work); only the final canonical assembly is u64.
+  batch, fully parallel, no sequential scan. The frames are assembled
+  in u32 *planes* (plane-wise construction + a lexicographic plane
+  compare); only the final canonical assembly is u64.
 * ``kmers_from_ascii_ref`` — a tiny pure-Python rolling reference used
   only by tests to cross-check the device path bit-for-bit.
 """
@@ -107,9 +106,7 @@ def canonical_kmers(codes: jax.Array, k: int):
             jnp.zeros((n, 0), dtype=bool),
         )
 
-    # Build the two frames in u32 PLANES: TPUs have no native u64
-    # lanes (every u64 op is emulated as a u32 pair), so assembling
-    # the 2k-bit frames directly in u64 costs ~2-3x the vector ops.
+    # Build the two frames in u32 PLANES (each element a 32-bit op).
     # Each window base lands in exactly one 32-bit plane of each
     # frame; the planes compare lexicographically for the canonical
     # min; only the final assembly touches u64 (one op per element).

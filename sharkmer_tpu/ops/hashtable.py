@@ -1,7 +1,7 @@
-"""HBM-resident open-addressed canonical k-mer count table.
+"""Device-resident open-addressed canonical k-mer count table.
 
-TPU-native replacement for the reference's ``KmerCounts`` hash map
-(/root/reference/src/kmer/counting.rs:113). The reference uses an
+The ``--backend hash`` replacement for the reference's ``KmerCounts``
+hash map (src/kmer/counting.rs:113). The reference uses an
 unbounded CPU ``HashMap<u64, u32>`` mutated one k-mer at a time; here
 the table is a pair of flat device arrays (keys: uint64, counts:
 uint32) with linear probing, and every mutation is a *batched*
@@ -229,11 +229,7 @@ def _histogram_kernel(counts, histo_max: int):
     Index 0 is forced to 0 (empty slots are not k-mers).
 
     Sort-based: sort the clipped counts and difference ``searchsorted``
-    positions at the bin edges. On TPU this runs ~24x faster than a
-    bincount (bincount lowers to a serialized scatter-add; measured
-    14M el/s vs 336M el/s for the sort at 2^26). Narrowing the sort to
-    u16 was tried and does NOT help (268 vs 253 ms at 2^27 — the
-    comparator network, not bandwidth, bounds XLA's sort)."""
+    positions at the bin edges, instead of a bincount scatter-add."""
     clipped = jax.lax.sort(
         jnp.minimum(counts, jnp.uint32(histo_max + 1)), is_stable=False
     )

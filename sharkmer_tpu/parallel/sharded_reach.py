@@ -18,9 +18,10 @@ plane, SPMD-native:
   loses). Because every other state tensor (frontier, bitmap, log,
   counters) is computed from the combined ids, all shards stay in
   lockstep through the loop — the collective is the only cross-shard
-  traffic, 8 * f_cap i32 per level over ICI. The visited-row gather at
-  the end combines shard-local key/count gathers with an
-  all_gather+min (u64 all-reduce does not lower on TPU) and a psum.
+  traffic, 8 * f_cap i32 per level between devices. The visited-row
+  gather at the end combines shard-local key/count gathers with an
+  all_gather+min (a u64 min over an all_gather needs no u64
+  all-reduce support from the collective library) and a psum.
 * **primer scans** (`sharded_range_scan`): the fused single-dispatch
   range-query kernel (ops/reach.py `_fused_scan_kernel`) runs
   shard-local under shard_map; per-shard padded results and true match
@@ -191,8 +192,8 @@ def _make_reach_kernel(mesh: Mesh, k: int, bits: int, cap: int,
             )
 
             # shard-local gather of the logged rows, then cross-shard
-            # combine: keys via all_gather+min (u64 psum/pmin do not
-            # lower on TPU; EMPTY = u64 max loses), counts via psum
+            # combine: keys via all_gather+min (EMPTY = u64 max
+            # loses), counts via psum
             live = log != inf
             local = (log - base).astype(jnp.int64)
             mine = live & (local >= 0) & (local < cap)

@@ -17,7 +17,7 @@ Design (all inside one `shard_map` over a 1-D mesh axis "shards"):
   local arrays. Per-kmer totals are identical to the single-device
   path by construction (same batch boundaries, same saturation).
 * **histogram**: local clipped bincount, all_gather + local u64 sum
-  across shards (u64 all-reduce does not lower on TPU).
+  across shards (no u64 all-reduce needed).
 * **lookup**: queries are replicated; each shard answers for owned
   queries (0 elsewhere) and results combine with `psum`.
 * **prefix scan**: shard-local scan + `all_gather` of the match
@@ -46,8 +46,16 @@ AXIS = "shards"
 
 
 def make_mesh(n_devices: int | None = None) -> Mesh:
+    """A flat 1-D mesh over the first ``n_devices`` devices (every
+    device pair is equally connected, so the mesh follows the
+    algorithm alone). Raises when fewer devices exist."""
     devices = jax.devices()
     if n_devices is not None:
+        if n_devices > len(devices):
+            raise ValueError(
+                f"{n_devices} shards requested but only {len(devices)} "
+                f"{devices[0].platform} device(s) are available"
+            )
         devices = devices[:n_devices]
     return Mesh(np.array(devices), (AXIS,))
 

@@ -11,8 +11,8 @@ shard_map:
   balanced; an overflow check guards the tail risk).
 * **flush**: concatenate master + pending runs per shard, aggregate,
   slice back to capacity (occupancy-checked, grow by doubling).
-* **histogram**: local clipped bincount, all_gather + local sum (u64
-  all-reduce does not lower on TPU; see _sum_shards_u64).
+* **histogram**: local clipped bincount, all_gather + local sum (see
+  _sum_shards_u64).
 * **lookup**: no owner masking needed — a k-mer exists only on its
   owning shard, every other shard contributes 0, and psum combines.
 * **sPCR data plane**: shard-local reach closures and fused primer
@@ -146,11 +146,11 @@ def _make_histogram(mesh: Mesh, histo_max: int):
 
 
 def _sum_shards_u64(local):
-    """Cross-shard sum of a u64 vector. all_gather + local add, NOT
-    psum: the TPU all-reduce lowering rejects u64 operands ("Supported
-    lowering only of Sum all reduce"), while all_gather is pure data
-    movement and the add then happens shard-locally. Histograms are
-    tiny (histo_max+2 elements) so the extra bytes are negligible."""
+    """Cross-shard sum of a u64 vector. all_gather + local add, not
+    psum: all_gather is pure data movement, so no u64 all-reduce
+    support is needed from the collective library, and the add happens
+    shard-locally. Histograms are tiny (histo_max+2 elements) so the
+    extra bytes are negligible."""
     return jnp.sum(
         jax.lax.all_gather(local, AXIS), axis=0, dtype=jnp.uint64
     )

@@ -15,8 +15,8 @@ Lookup strategies (``mode``):
   crosses the link. Otherwise degrades to ``full`` for small tables
   and ``device`` beyond MIRROR_MAX_UNIQUE.
 * ``full``: one-time full-table device->host export (sorted mirror);
-  waves served by host searchsorted. Pays the export wall (the
-  deployment link moves ~13 MB/s) but makes every later lookup free.
+  waves served by host searchsorted. Pays the export wall but makes
+  every later lookup free.
 * ``device``: no host state; every wave is a synchronous device
   lookup. Exact at any table size, dominated by round-trip latency.
 
@@ -31,6 +31,7 @@ import logging
 import threading
 from dataclasses import dataclass, field
 
+import jax
 import numpy as np
 
 from ..ops.encoding import revcomp_kmer
@@ -81,14 +82,10 @@ class SmallCounts:
         return counts[mid]
 
 
-# Above this many unique k-mers the full host mirror is not built
-# (memory); auto mode then degrades to device lookups when the backend
-# has no reach support. Measured r5 (1M noisy reads, warm caches):
-# auto/reach-prefetch 4.2 s total vs full-mirror 9.7 s vs per-wave
-# device 153 s — so this constant no longer picks the default data
-# plane (auto wins at every size its index fits, i.e. everywhere);
-# it only caps the closure-overflow fallback's mirror at ~3 GB host
-# RAM (~12 B/key), past which the fallback is per-wave lookups.
+# Above this many unique k-mers the full host mirror is not built: it
+# caps a mirror at ~3 GB host RAM (~12 B/key). Auto mode on a backend
+# without reach support, and the out-of-memory fallback of the sPCR
+# index build, use per-wave device lookups past it.
 MIRROR_MAX_UNIQUE = 256_000_000
 
 
@@ -130,10 +127,7 @@ class FilteredTable:
             resolved = "full"
         else:
             # full requested, or auto on a backend without reach support
-            try:
-                small = self.table.n_unique() <= MIRROR_MAX_UNIQUE
-            except Exception:
-                small = False
+            small = self.table.n_unique() <= MIRROR_MAX_UNIQUE
             resolved = "full" if small else "device"
         self._mode_cache = resolved
         return resolved
@@ -154,46 +148,41 @@ class FilteredTable:
         if mode == "prefetch":
             try:
                 self.table.prepare_spcr()
-            except Exception:
-                # very large tables can exhaust HBM building the sPCR
-                # sidecars: degrade to the mirror (small table) or
-                # per-wave device lookups instead of crashing the run
+            except jax.errors.JaxRuntimeError as e:
+                if "RESOURCE_EXHAUSTED" not in str(e):
+                    raise
+                # very large tables can exhaust device memory building
+                # the sPCR sidecars: degrade to the mirror (small
+                # table) or per-wave device lookups. Any other error
+                # is a fault and propagates.
                 log.warning(
-                    "sPCR device-index build failed; falling back from "
-                    "reach-prefetch mode", exc_info=True,
+                    "sPCR device-index build ran out of device memory; "
+                    "falling back from reach-prefetch mode", exc_info=True,
                 )
-                try:
-                    small = self.table.n_unique() <= MIRROR_MAX_UNIQUE
-                except Exception:
-                    small = False
+                small = self.table.n_unique() <= MIRROR_MAX_UNIQUE
                 self._mode_cache = "full" if small else "device"
                 self.warm_caches()
                 return
             # compile the closure kernel at the production variants so
-            # the first genes' walks don't pay the (tens of seconds)
-            # compile: both standard frontier shapes, and a min_count
+            # the first genes' walks don't pay the compile: both
+            # standard frontier shapes, and a min_count
             # just below the packed-count saturation cap — high enough
             # that the warmup quiesces after the root level, low enough
             # to select the same packed kernel production calls use
             spare = 64 - 2 * self.table.k
-            warm_mc = (1 << spare) - 2 if spare >= 12 else (1 << 30)
+            # (counts are u32, so the threshold is capped there)
+            warm_mc = (
+                min((1 << spare) - 2, 0xFFFF_FFFF) if spare >= 12
+                else (1 << 30)
+            )
             # f_cap 256 and 1024 shapes, plus the warm-started (pre)
             # variant at 256 that mid-walk re-prefetches hit
             for n_roots, pre in ((1, None), (257, None),
                                  (1, np.arange(300, 320, dtype=np.uint64))):
-                try:
-                    self.table.reach(
-                        np.arange(1, n_roots + 1, dtype=np.uint64),
-                        warm_mc, depth=self.prefetch_depth, pre=pre,
-                    )
-                except Exception:  # pragma: no cover - best-effort
-                    # a silent warmup failure pushes a tens-of-seconds
-                    # kernel compile into the first gene's wall time:
-                    # surface it where default logging shows it
-                    log.warning(
-                        "reach warmup failed (first gene will pay the "
-                        "closure-kernel compile)", exc_info=True,
-                    )
+                self.table.reach(
+                    np.arange(1, n_roots + 1, dtype=np.uint64),
+                    warm_mc, depth=self.prefetch_depth, pre=pre,
+                )
         elif mode == "full":
             self._get_mirror()
 
@@ -205,7 +194,7 @@ class FilteredTable:
         """(sorted kmers, counts) restricted to rows >= the view's
         min_count: sub-threshold rows are invisible through a
         FilteredTable anyway, and dropping them on device shrinks the
-        export payload before it crosses the slow link."""
+        export payload before it crosses the host link."""
         if self._mirror is not None:  # hot path: one read per BFS wave
             return self._mirror
         with self._lock:

@@ -13,9 +13,8 @@ from __future__ import annotations
 
 import logging
 import os
+import re
 from dataclasses import dataclass, field
-
-import yaml
 
 from .params import PCRParams
 
@@ -51,10 +50,369 @@ class PanelFile:
     raw: dict = field(default_factory=dict)
 
 
+# -- block-YAML reader -------------------------------------------------------
+#
+# Panel files use a small subset of YAML: block mappings and sequences
+# (including sequences at their parent key's indent), single-line flow
+# lists and mappings, plain / single-quoted / double-quoted scalars
+# (quoted ones may span lines), folded and literal block scalars, and
+# comments. The reader below handles exactly that subset, resolves
+# plain scalars with YAML 1.1 rules for null, bool, int and float, and
+# reads dates as strings. Anything outside the subset is an error.
+
+
+class YamlSubsetError(ValueError):
+    pass
+
+
+_NULLS = {"", "~", "null", "Null", "NULL"}
+_TRUE = {"yes", "Yes", "YES", "true", "True", "TRUE", "on", "On", "ON"}
+_FALSE = {"no", "No", "NO", "false", "False", "FALSE", "off", "Off", "OFF"}
+_INT_RE = re.compile(r"[-+]?(0|[1-9][0-9_]*)$")
+_FLOAT_RE = re.compile(
+    r"[-+]?([0-9][0-9_]*)?\.[0-9_]*([eE][-+][0-9]+)?$"
+)
+# a mapping key (double-quoted, single-quoted or plain) and its colon
+_KEY_RE = re.compile(
+    r""" ( "(?:[^"\\]|\\.)*" | '(?:[^']|'')*'
+         | [^\s#'"\[\]{},&*!|>%@`-][^#]*? | -[^\s#][^#]*? )
+         :(?:\s+|$) """,
+    re.VERBOSE,
+)
+
+
+def _resolve_plain(text: str):
+    if text in _NULLS:
+        return None
+    if text in _TRUE:
+        return True
+    if text in _FALSE:
+        return False
+    if _INT_RE.match(text):
+        return int(text.replace("_", ""))
+    if _FLOAT_RE.match(text) and any(c.isdigit() for c in text):
+        return float(text.replace("_", ""))
+    return text
+
+
+def _strip_comment(text: str) -> str:
+    """Drop a trailing `` # comment`` outside quotes."""
+    quote = None
+    escaped = False
+    for i, c in enumerate(text):
+        if quote:
+            if escaped:
+                escaped = False
+            elif c == "\\" and quote == '"':
+                escaped = True
+            elif c == quote:
+                quote = None
+        elif c in "\"'" and (i == 0 or text[i - 1] in " [{,:"):
+            quote = c
+        elif c == "#" and (i == 0 or text[i - 1] in " \t"):
+            return text[:i].rstrip()
+    return text.rstrip()
+
+
+def _unquote(text: str) -> str:
+    """A complete quoted scalar (quotes included) on one logical line."""
+    if text[0] == "'":
+        return text[1:-1].replace("''", "'")
+    body = text[1:-1]
+    out = []
+    i = 0
+    simple = {"\\": "\\", '"': '"', "n": "\n", "t": "\t", "r": "\r",
+              "0": "\0", "/": "/", " ": " ", "b": "\b", "f": "\f"}
+    while i < len(body):
+        c = body[i]
+        if c != "\\":
+            out.append(c)
+            i += 1
+            continue
+        e = body[i + 1] if i + 1 < len(body) else ""
+        if e in simple:
+            out.append(simple[e])
+            i += 2
+        elif e in "xuU":
+            width = {"x": 2, "u": 4, "U": 8}[e]
+            out.append(chr(int(body[i + 2 : i + 2 + width], 16)))
+            i += 2 + width
+        else:
+            raise YamlSubsetError(f"unsupported escape \\{e}")
+    return "".join(out)
+
+
+def _quoted_end(text: str, start: int) -> int:
+    """Index just past the quoted scalar opening at ``start``, or -1."""
+    q = text[start]
+    i = start + 1
+    while i < len(text):
+        c = text[i]
+        if q == '"' and c == "\\":
+            i += 2
+            continue
+        if c == q:
+            if q == "'" and i + 1 < len(text) and text[i + 1] == "'":
+                i += 2
+                continue
+            return i + 1
+        i += 1
+    return -1
+
+
+_FLOW_PLAIN_RE = re.compile(r"[^,\[\]{}:]*(?::(?! |,|\]|}|$)[^,\[\]{}:]*)*")
+
+
+def _parse_flow(text: str):
+    """A single-line flow collection (``[...]`` or ``{...}``)."""
+
+    def skip(i):
+        while text[i] == " ":
+            i += 1
+        return i
+
+    def items(i, close):
+        """Entries up to ``close``; each is a value, or key: value in a
+        mapping. Returns (entries, index past ``close``)."""
+        out = []
+        i = skip(i)
+        while text[i] != close:
+            entry, i = value(i)
+            if close == "}":
+                i = skip(i)
+                if text[i] != ":":
+                    raise YamlSubsetError(f"expected ':' in {text!r}")
+                v, i = value(i + 1)
+                entry = (entry, v)
+            out.append(entry)
+            i = skip(i)
+            if text[i] == ",":
+                i = skip(i + 1)
+            elif text[i] != close:
+                raise YamlSubsetError(f"expected ',' or {close!r} in {text!r}")
+        return out, i + 1
+
+    def value(i):
+        i = skip(i)
+        c = text[i]
+        if c == "[":
+            return items(i + 1, "]")
+        if c == "{":
+            entries, i = items(i + 1, "}")
+            return dict(entries), i
+        if c in "\"'":
+            end = _quoted_end(text, i)
+            if end < 0:
+                raise YamlSubsetError(f"unterminated string in {text!r}")
+            return _unquote(text[i:end]), end
+        m = _FLOW_PLAIN_RE.match(text, i)
+        return _resolve_plain(m.group(0).strip()), m.end()
+
+    try:
+        v, end = value(0)
+    except IndexError:
+        raise YamlSubsetError(f"unterminated flow collection {text!r}")
+    if text[end:].strip():
+        raise YamlSubsetError(f"trailing text after {text!r}")
+    return v
+
+
+class _Reader:
+    def __init__(self, text: str):
+        self.lines = [ln.rstrip() for ln in text.splitlines()]
+        self.i = 0
+
+    def skip(self) -> None:
+        while self.i < len(self.lines):
+            s = self.lines[self.i].lstrip(" ")
+            if s and not s.startswith("#"):
+                return
+            self.i += 1
+
+    def eof(self) -> bool:
+        self.skip()
+        return self.i >= len(self.lines)
+
+    def indent(self) -> int:
+        ln = self.lines[self.i]
+        return len(ln) - len(ln.lstrip(" "))
+
+    def fail(self, msg: str):
+        raise YamlSubsetError(f"line {self.i + 1}: {msg}")
+
+    @staticmethod
+    def _is_item(text: str) -> bool:
+        return text == "-" or text.startswith("- ")
+
+    def node(self, ind: int):
+        text = self.lines[self.i][ind:]
+        if text.startswith(("---", "...", "%", "&", "*", "!", "? ")):
+            self.fail(f"unsupported YAML syntax {text[:20]!r}")
+        if self._is_item(text):
+            return self.seq(ind)
+        if _KEY_RE.match(text):
+            return self.mapping(ind)
+        self.i += 1
+        return self.scalar(_strip_comment(text), ind - 1)
+
+    def seq(self, ind: int) -> list:
+        out = []
+        while not self.eof() and self.indent() == ind:
+            text = self.lines[self.i][ind:]
+            if not self._is_item(text):
+                break
+            rest = text[1:]
+            body = rest.lstrip(" ")
+            if not body or body.startswith("#"):
+                self.i += 1
+                if self.eof() or self.indent() <= ind:
+                    out.append(None)
+                    continue
+                out.append(self.node(self.indent()))
+                continue
+            item_ind = ind + 1 + len(rest) - len(body)
+            self.lines[self.i] = " " * item_ind + body
+            out.append(self.node(item_ind))
+        if not self.eof() and self.indent() > ind:
+            self.fail("bad indentation after a sequence item")
+        return out
+
+    def mapping(self, ind: int) -> dict:
+        out = {}
+        while not self.eof() and self.indent() == ind:
+            text = self.lines[self.i][ind:]
+            if self._is_item(text):
+                break
+            m = _KEY_RE.match(text)
+            if not m:
+                self.fail(f"expected 'key: value', got {text[:40]!r}")
+            raw_key = m.group(1)
+            key = (
+                _unquote(raw_key) if raw_key[0] in "\"'"
+                else _resolve_plain(raw_key.strip())
+            )
+            rest = _strip_comment(text[m.end():])
+            self.i += 1
+            if rest:
+                out[key] = self.scalar(rest, ind)
+                continue
+            if self.eof():
+                out[key] = None
+            elif self.indent() > ind:
+                out[key] = self.node(self.indent())
+            elif self.indent() == ind and self._is_item(
+                self.lines[self.i][ind:]
+            ):
+                out[key] = self.seq(ind)
+            else:
+                out[key] = None
+        if not self.eof() and self.indent() > ind:
+            self.fail("bad indentation")
+        return out
+
+    def scalar(self, text: str, parent: int):
+        """A value that starts on the line just consumed; ``parent`` is
+        the indent that continuation lines must exceed."""
+        if text[0] in ">|":
+            return self.block_scalar(text, parent)
+        if text[0] in "[{":
+            return _parse_flow(text)
+        if text[0] in "\"'":
+            return self.quoted(text)
+        parts = [text]
+        while self.i < len(self.lines):
+            ln = self.lines[self.i]
+            s = ln.lstrip(" ")
+            if not s or s.startswith("#") or len(ln) - len(s) <= parent:
+                break
+            parts.append(_strip_comment(s))
+            self.i += 1
+        return _resolve_plain(" ".join(parts))
+
+    def quoted(self, text: str) -> str:
+        end = _quoted_end(text, 0)
+        lines = [text]
+        while end < 0:
+            if self.i >= len(self.lines):
+                self.fail("unterminated quoted string")
+            lines.append(self.lines[self.i].strip())
+            self.i += 1
+            # fold: line breaks become spaces, empty lines newlines
+            folded, pending = lines[0], 0
+            for ln in lines[1:]:
+                if not ln:
+                    pending += 1
+                    continue
+                folded += ("\n" * pending) if pending else " "
+                folded += ln
+                pending = 0
+            text = folded
+            end = _quoted_end(text, 0)
+        if _strip_comment(text[end:]):
+            self.fail(f"text after a quoted scalar: {text[end:]!r}")
+        return _unquote(text[:end])
+
+    def block_scalar(self, header: str, parent: int) -> str:
+        m = re.fullmatch(r"([>|])([-+]?)", header)
+        if not m:
+            self.fail(f"unsupported block scalar header {header!r}")
+        style, chomp = m.groups()
+        body = []
+        content = None
+        while self.i < len(self.lines):
+            ln = self.lines[self.i]
+            s = ln.lstrip(" ")
+            ind = len(ln) - len(s)
+            if s and ind <= parent:
+                break
+            if s and content is None:
+                content = ind
+            body.append(ln[content:] if s else "")
+            self.i += 1
+        while body and body[-1] == "" and chomp != "+":
+            body.pop()
+        n_trail = 0
+        if chomp == "+":
+            while body and body[-1] == "":
+                body.pop()
+                n_trail += 1
+        if style == "|":
+            text = "\n".join(body)
+        else:
+            text, prev_blank = "", True
+            for ln in body:
+                if not ln:
+                    text += "\n"
+                    prev_blank = True
+                    continue
+                if ln.startswith(" "):
+                    self.fail("more-indented lines in a folded scalar")
+                if not prev_blank and not text.endswith("\n"):
+                    text += " "
+                text += ln
+                prev_blank = False
+        if not body:
+            return ""
+        if chomp == "-":
+            return text
+        return text + "\n" * (1 + n_trail)
+
+
+def load_yaml(text: str):
+    """Parse the block-YAML subset described above."""
+    r = _Reader(text)
+    if r.eof():
+        return None
+    value = r.node(r.indent())
+    if not r.eof():
+        r.fail("unexpected text at the top level")
+    return value
+
+
 def parse_panel_yaml(yaml_str: str) -> PanelFile:
     try:
-        d = yaml.safe_load(yaml_str)
-    except yaml.YAMLError as e:
+        d = load_yaml(yaml_str)
+    except YamlSubsetError as e:
         raise ValueError(f"Failed to parse panel YAML: {e}") from e
     if not isinstance(d, dict):
         raise ValueError("Failed to parse panel YAML: not a mapping")

@@ -136,7 +136,7 @@ def warm_panel_scans(counts: FilteredTable, runs: list[PCRParams]) -> None:
     """Pre-fetch every (gene, primer, mismatch level) scan of the panel
     in ONE batched device dispatch (prefix_scan_many) before the gene
     pool starts. Each request keeps its own per-scan semantics — this
-    only moves the ~0.1 s/dispatch link latency off the per-gene path.
+    only moves the per-dispatch host round trip off the per-gene path.
     Backends without prefix_scan_many (hash table) scan lazily."""
     scan_many = getattr(counts.table, "prefix_scan_many", None)
     if scan_many is None:

@@ -9,12 +9,12 @@ for determinism (stats.rs:101-145).
 
 from __future__ import annotations
 
+import json
 import logging
+import re
 import sys
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
-
-import yaml
 
 from . import __version__
 from .format import format_bytes, format_count, format_duration
@@ -51,6 +51,7 @@ class RunStats:
     n_singleton_kmers: int | None
     peak_memory_bytes: int
     pcr_results: list[PcrGeneResult]
+    device: dict | None = None  # platform, kind, count of the run's device
 
     def to_yaml_dict(self) -> dict:
         d = {
@@ -70,6 +71,8 @@ class RunStats:
         if self.n_singleton_kmers is not None:
             d["n_singleton_kmers"] = self.n_singleton_kmers
         d["peak_memory_bytes"] = self.peak_memory_bytes
+        if self.device is not None:
+            d["device"] = dict(self.device)
         if self.pcr_results:
             d["pcr_results"] = [
                 _gene_result_dict(r) for r in self.pcr_results
@@ -190,12 +193,67 @@ def run_pcr(
     return pcr_results
 
 
+_PLAIN_KEY = re.compile(r"[A-Za-z_][A-Za-z0-9_]*")
+
+
+def _yaml_scalar(v) -> str:
+    if v is None:
+        return "null"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, (int, float)):
+        return repr(v)
+    # a JSON string is a valid YAML double-quoted scalar
+    return json.dumps(str(v), ensure_ascii=False)
+
+
+def _yaml_lines(obj, indent: int) -> list[str]:
+    """Block YAML for nested dicts / lists of str, int, float, bool and
+    None (sequences sit at their parent key's indent)."""
+    pad = " " * indent
+    lines = []
+    if isinstance(obj, dict):
+        for k, v in obj.items():
+            key = k if _PLAIN_KEY.fullmatch(k) else _yaml_scalar(k)
+            if isinstance(v, dict) and v:
+                lines.append(f"{pad}{key}:")
+                lines += _yaml_lines(v, indent + 2)
+            elif isinstance(v, list) and v:
+                lines.append(f"{pad}{key}:")
+                lines += _yaml_lines(v, indent)
+            else:
+                lines.append(f"{pad}{key}: {_yaml_inline(v)}")
+        return lines
+    for item in obj:
+        if isinstance(item, (dict, list)) and item:
+            sub = _yaml_lines(item, indent + 2)
+            lines.append(f"{pad}- {sub[0][indent + 2:]}")
+            lines += sub[1:]
+        else:
+            lines.append(f"{pad}- {_yaml_inline(item)}")
+    return lines
+
+
+def _yaml_inline(v) -> str:
+    if isinstance(v, dict):
+        return "{}"
+    if isinstance(v, list):
+        return "[]"
+    return _yaml_scalar(v)
+
+
+def dump_yaml(obj: dict) -> str:
+    """Plain block-YAML emitter for stats.yaml (read back by any YAML
+    loader and by ``pcr.panels.load_yaml``)."""
+    return "\n".join(_yaml_lines(obj, 0)) + "\n"
+
+
 def write_stats(run_stats: RunStats, directory: str, sample: str) -> None:
     log.info("Writing stats to file...")
     stats_path = f"{directory}{sample}.stats.yaml"
     warn_if_exists(stats_path)
     with open(stats_path, "w") as f:
-        yaml.safe_dump(run_stats.to_yaml_dict(), f, sort_keys=False)
+        f.write(dump_yaml(run_stats.to_yaml_dict()))
 
 
 def print_summary(run_stats: RunStats, elapsed: float) -> None:

@@ -175,3 +175,87 @@ def test_export_panel_yaml_roundtrip():
     assert panel.name == "cnidaria"
     with pytest.raises(ValueError):
         panels_mod.export_panel_yaml("nope")
+
+
+# -- the block-YAML subset reader and the stats.yaml emitter ----------------
+
+def _dates_as_strings(x):
+    import datetime
+
+    if isinstance(x, dict):
+        return {_dates_as_strings(k): _dates_as_strings(v)
+                for k, v in x.items()}
+    if isinstance(x, list):
+        return [_dates_as_strings(v) for v in x]
+    if isinstance(x, datetime.date):
+        return x.isoformat()
+    return x
+
+
+@pytest.mark.parametrize(
+    "path",
+    [f"sharkmer_tpu/panels/{n}.yaml" for n in panels_mod.BUILTIN_PANEL_NAMES]
+    + [FIXTURE],
+)
+def test_yaml_reader_matches_pyyaml(path):
+    yaml = pytest.importorskip("yaml")
+    with open(path) as f:
+        text = f.read()
+    assert panels_mod.load_yaml(text) == _dates_as_strings(
+        yaml.safe_load(text)
+    )
+
+
+def test_yaml_reader_rejects_syntax_outside_the_subset():
+    for text in ("a: &x 1\nb: *x\n", "a: 1\n  b: 2\n", "- a\nb: 1\n",
+                 "a: \"open\n", "a: [a: b]\n", "a: {x 1}\n"):
+        with pytest.raises(ValueError):
+            parse_panel_yaml(text)
+
+
+def test_stats_yaml_round_trip():
+    yaml = pytest.importorskip("yaml")
+    from sharkmer_tpu.stats import dump_yaml
+
+    d = {
+        "sharkmer_version": "0.1.0",
+        "command": "sharkmer 'a b' \"q\" x: y # not a comment",
+        "kmer_length": 19, "n_multi_kmers": None, "ok": True,
+        "device": {"platform": "gpu", "kind": "NVIDIA H100 80GB HBM3",
+                   "count": 1},
+        "pcr_results": [
+            {"gene_name": "g1", "status": "success", "n_products": 2,
+             "product_lengths": [580, 601]},
+            {"gene_name": "g2", "status": "fail", "n_products": 0,
+             "failure_reason": "no path: budget\nexhausted ✘"},
+        ],
+        "empty": [],
+    }
+    text = dump_yaml(d)
+    assert yaml.safe_load(text) == d
+    assert panels_mod.load_yaml(text) == d
+
+
+def test_main_path_does_not_import_pyyaml(tmp_path):
+    """The count + sPCR path runs with PyYAML unimportable."""
+    import os
+    import subprocess
+    import sys
+
+    from util import random_genome, reads_from_genome, write_fastq
+
+    path = tmp_path / "r.fastq"
+    write_fastq(path, reads_from_genome(random_genome(800), 300, 90))
+    code = (
+        "import sys; sys.modules['yaml'] = None\n"
+        "from sharkmer_tpu.main import main\n"
+        f"rc = main([{str(path)!r}, '-s', 'x', '-k', '19', '--chunks', '1',"
+        f" '--pcr-panel', 'cnidaria', '-o', {str(tmp_path / 'o')!r}])\n"
+        "assert 'yaml' not in [m for m in sys.modules if sys.modules[m]]\n"
+        "sys.exit(rc)\n"
+    )
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert (tmp_path / "o" / "x.stats.yaml").exists()

@@ -400,15 +400,19 @@ def test_sharded_do_pcr_prefetch_matches_single():
 
 
 def test_warm_caches_degrades_when_index_build_fails(monkeypatch):
-    """If the sPCR device-index build fails (e.g. HBM exhaustion on
-    very large tables), warm_caches must fall back to the mirror mode
-    and lookups must stay exact."""
+    """If the sPCR device-index build runs out of device memory (very
+    large tables), warm_caches must fall back to the mirror mode and
+    lookups must stay exact."""
+    import jax
+
     k = 11
     genome = random_genome(500, seed=51)
     store = build_store(genome, k, n_reads=300)
 
     def boom(self):
-        raise RuntimeError("synthetic RESOURCE_EXHAUSTED")
+        raise jax.errors.JaxRuntimeError(
+            "RESOURCE_EXHAUSTED: Out of memory while trying to allocate"
+        )
 
     monkeypatch.setattr(type(store), "prepare_spcr", boom)
     view = FilteredTable(store, min_count=1, mode="auto")
@@ -447,32 +451,46 @@ def test_reach_spill_past_out_w():
     np.testing.assert_array_equal(res.counts, counts)
 
 
-def test_pallas_probe_matches_xla_path(monkeypatch):
-    """The Pallas DMA probe (SHARKMER_PALLAS_PROBE=force, interpret on
-    CPU) must reproduce the XLA gather probe bit-for-bit: same visited
-    rows on a depth-capped genome walk and on isolated-root hits."""
-    monkeypatch.setenv("SHARKMER_PALLAS_PROBE", "force")
-    k = 21
-    genome = random_genome(1500, seed=9)
-    store = build_store(genome, k, n_reads=700, read_len=90)
-    model = store.to_dict()
-    assert store.parts and store.parts[0].kmers.shape[0] >= 1024
-    store.prepare_spcr()
-    assert store._spcr_cache[1][0][0].super2d is not None
+@pytest.mark.parametrize("error", [
+    RuntimeError("RESOURCE_EXHAUSTED but not from the runtime"),
+    ValueError("bad sidecar"),
+    "internal",
+])
+def test_warm_caches_propagates_other_errors(monkeypatch, error):
+    """Only a device out-of-memory error degrades the lookup mode; any
+    other failure of the index build is a fault and propagates."""
+    import jax
 
-    root = seq_to_kmer(genome[700 : 700 + k])
-    depth = 24
+    if error == "internal":
+        error = jax.errors.JaxRuntimeError("INTERNAL: kernel launch failed")
+    store = build_store(random_genome(400, seed=52), 11, n_reads=200)
+
+    def boom(self):
+        raise error
+
+    monkeypatch.setattr(type(store), "prepare_spcr", boom)
+    view = FilteredTable(store, min_count=1, mode="auto")
+    with pytest.raises(type(error)):
+        view.warm_caches()
+
+
+@pytest.mark.parametrize("k", [19, 31])
+def test_reach_matches_host_lookups(k):
+    """Closures at production k (19: count-packed probe blocks; 31: no
+    spare bits, separate key and count blocks) against the host mirror
+    BFS: same visited rows, same counts."""
+    genome = random_genome(1200, seed=60 + k)
+    store = build_store(genome, k, n_reads=700, read_len=100, seed=k)
+    keys, counts = store.to_sorted_arrays()
+    model = dict(zip(keys.tolist(), counts.tolist()))
+    store.prepare_spcr()
+    packed = [s.packed2d is not None for s in store._spcr_cache[1][0]]
+    assert all(packed) == (64 - 2 * k >= 12)
+    root = seq_to_kmer(genome[500 : 500 + k])
     for mc in (1, 2):
         res = store.reach(np.array([root], np.uint64), min_count=mc,
-                          depth=depth)
-        assert res is not None
-        oracle_d, _ = closure_oracle(model, [int(root)], mc, k,
-                                     depth=depth)
-        got = set(res.keys.tolist())
-        missing = oracle_d - got
-        assert not missing, f"mc={mc}: {len(missing)} missing"
-        oracle_d4, _ = closure_oracle(model, [int(root)], mc, k,
-                                      depth=depth + 4)
-        assert got <= oracle_d4
-        for km, ct in zip(res.keys.tolist(), res.counts.tolist()):
-            assert model[km] == ct
+                          depth=4096)
+        oracle, complete = closure_oracle(model, [int(root)], mc, k)
+        assert res is not None and res.complete == complete
+        got = dict(zip(res.keys.tolist(), res.counts.tolist()))
+        assert got == {km: model[km] for km in oracle}

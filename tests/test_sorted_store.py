@@ -385,61 +385,13 @@ def test_scan_below_view_threshold_sees_subthreshold_rows():
         assert sorted(got_c.tolist()) == [1, 5], mode
 
 
-def test_drain_v2_matches_v1_oracle():
-    """Drain v2 (batched-row compaction + DMA stitch, interpret mode)
-    must agree with the v1 XLA-cummax drain on live rows: same unique
-    keys, same exact counts, ghosts only as zero-count duplicates of
-    their live predecessor."""
+def test_ghost_rows_invisible_to_queries():
+    """Ghost rows (zero-count duplicates of a live key, left by the
+    ghosted drain) must be invisible to lookups, histograms, unique
+    counts and the host export."""
     import jax.numpy as jnp
 
     from sharkmer_tpu.ops import sorted_store as ss
-
-    rng = np.random.default_rng(7)
-    n = ss.ROW_W * 2
-    # heavy duplication incl. runs spanning row boundaries
-    uniq = rng.integers(0, 1 << 42, size=n // 5, dtype=np.uint64)
-    raw = uniq[rng.integers(0, len(uniq), size=n)]
-    raw[: n // 64] = uniq[0]  # one massive run
-    raw[-1000:] = ss.EMPTY  # sentinel tail slack
-    k = 21
-
-    uk1, uc1, nu1 = ss._aggregate_ingest_jit(
-        jnp.asarray(raw), use_pallas=False, count_bits=64 - 2 * k
-    )
-    uk2, uc2, nu_p, nu_r = ss._aggregate_ingest_v2_jit(
-        jnp.asarray(raw), count_bits=64 - 2 * k, interpret=True
-    )
-    nu1, nu_p, nu_r = int(nu1), int(nu_p), int(nu_r)
-    assert nu_r == nu1
-    assert nu_p >= nu_r and nu_p % ss.GHOST_Q == 0
-
-    k1 = np.asarray(uk1)[:nu1]
-    c1 = np.asarray(uc1)[:nu1]
-    k2 = np.asarray(uk2)[:nu_p]
-    c2 = np.asarray(uc2)[:nu_p]
-    # sentinel tail after the padded prefix
-    assert np.all(np.asarray(uk2)[nu_p:] == ss.EMPTY)
-    # sorted including ghosts, live rows first within equal keys
-    assert np.all(np.diff(k2.astype(np.uint64)) >= 0)
-    live = c2 > 0
-    assert np.array_equal(k2[live], k1)
-    assert np.array_equal(c2[live], c1)
-    # every ghost duplicates an existing live key
-    ghosts = k2[~live]
-    assert np.all(np.isin(ghosts, k1))
-
-
-def test_drain_v2_store_end_to_end():
-    """A store forced onto the v2 drain path (interpret mode is not
-    reachable through the store, so exercise the ghost bookkeeping via
-    the public API with the fallback-compatible small widths)."""
-    import os
-
-    from sharkmer_tpu.ops import sorted_store as ss
-
-    # representative check of lookup/histogram semantics when ghost
-    # rows are present: build a partition by hand with a ghost row
-    import jax.numpy as jnp
 
     keys = np.array([5, 9, 9, 12, ss.EMPTY], np.uint64)  # 9 ghosted
     counts = np.array([3, 7, 0, 2, 0], np.uint32)
@@ -548,3 +500,174 @@ def test_ghosted_fresh_drain_differential():
     store.insert_kmers(keys2)
     assert store.to_dict() == dict(model)
     assert store.n_total() == sum(model.values())
+
+
+# -- drains against numpy (the XLA formulations are the only drain path) ----
+
+
+def _drain_buffer(n: int, k: int, seed: int) -> np.ndarray:
+    """Heavy duplication, one long run, and a sentinel tail."""
+    from sharkmer_tpu.ops.sorted_store import EMPTY
+
+    rng = np.random.default_rng(seed)
+    pool = rng.integers(0, (1 << (2 * k)) - 1, size=n // 6, dtype=np.uint64)
+    buf = pool[rng.integers(0, len(pool), size=n)]
+    buf[: n // 16] = pool[0]
+    buf[-(n // 9):] = EMPTY
+    rng.shuffle(buf)
+    return buf
+
+
+def _numpy_counts(buf):
+    from sharkmer_tpu.ops.sorted_store import EMPTY
+
+    keys, counts = np.unique(buf[buf != EMPTY], return_counts=True)
+    return keys, counts.astype(np.uint32)
+
+
+@pytest.mark.parametrize("k", [17, 19, 21, 25, 31])
+def test_compacting_drain_matches_numpy(k):
+    """The compacting drain (packed route for k <= 22, kv route above)
+    equals numpy.unique, with a sentinel tail behind the uniques."""
+    import jax.numpy as jnp
+
+    from sharkmer_tpu.ops.sorted_store import EMPTY, _aggregate_ingest_jit
+
+    buf = _drain_buffer(1 << 14, k, seed=k)
+    keys, counts = _numpy_counts(buf)
+    uk, uc, n = _aggregate_ingest_jit(jnp.asarray(buf), count_bits=64 - 2 * k)
+    assert int(n) == len(keys)
+    uk, uc = np.asarray(uk), np.asarray(uc)
+    np.testing.assert_array_equal(uk[: len(keys)], keys)
+    np.testing.assert_array_equal(uc[: len(keys)], counts)
+    assert (uk[len(keys):] == EMPTY).all() and (uc[len(keys):] == 0).all()
+
+
+@pytest.mark.parametrize("k", [17, 19, 21, 25, 31])
+def test_ghosted_drain_matches_numpy(k):
+    """The ghosted drain keeps the full sorted array: each run's total
+    at its first row, zero-count ghosts behind it."""
+    import jax.numpy as jnp
+
+    from sharkmer_tpu.ops.sorted_store import (
+        EMPTY,
+        _aggregate_ingest_ghosted_jit,
+    )
+
+    buf = _drain_buffer(1 << 14, k, seed=100 + k)
+    keys, counts = _numpy_counts(buf)
+    sk, sc, n_p, n_r = _aggregate_ingest_ghosted_jit(jnp.asarray(buf))
+    sk, sc = np.asarray(sk), np.asarray(sc)
+    assert int(n_r) == len(keys)
+    assert int(n_p) == int((buf != EMPTY).sum())
+    np.testing.assert_array_equal(sk, np.sort(buf))
+    live = sc > 0
+    np.testing.assert_array_equal(sk[live], keys)
+    np.testing.assert_array_equal(sc[live], counts)
+
+
+def test_drain_packed_compaction_matches_kv():
+    """The packed single-sort compaction (k <= 21) must be bit-identical
+    to the kv-sort compaction, including the n_unique count."""
+    import jax.numpy as jnp
+
+    from sharkmer_tpu.ops.sorted_store import _aggregate_ingest_impl
+
+    rng = np.random.default_rng(3)
+    # 42-bit keyspace (k=21) with heavy duplication + sentinel tail
+    buf = rng.integers(0, 1 << 42, size=4096, dtype=np.uint64)
+    buf = np.concatenate([buf, buf[:1024], buf[:64],
+                          np.full(512, (1 << 64) - 1, np.uint64)])
+    k_kv, c_kv, n_kv = _aggregate_ingest_impl(jnp.asarray(buf), 0)
+    k_pk, c_pk, n_pk = _aggregate_ingest_impl(jnp.asarray(buf), 22)
+    assert int(n_kv) == int(n_pk)
+    np.testing.assert_array_equal(np.asarray(k_kv), np.asarray(k_pk))
+    np.testing.assert_array_equal(np.asarray(c_kv), np.asarray(c_pk))
+
+
+def test_merge_aggregate_packed_matches_kv():
+    """_aggregate_impl with count_bits set must match the kv formulation
+    for benign counts (packed route), for counts exceeding the packed
+    field (runtime kv fallback), and for the all-ones key edge case."""
+    import jax.numpy as jnp
+
+    from sharkmer_tpu.ops.sorted_store import _aggregate_impl
+
+    rng = np.random.default_rng(11)
+    kmers = rng.integers(0, 1 << 42, size=2048, dtype=np.uint64)
+    kmers = np.concatenate([kmers, kmers[:512],
+                            np.full(256, (1 << 64) - 1, np.uint64)])
+
+    for counts in (
+        rng.integers(1, 200, size=len(kmers), dtype=np.uint32),  # packed
+        rng.integers(1, 1 << 31, size=len(kmers), dtype=np.uint32),  # kv
+    ):
+        c = counts.copy()
+        c[-256:] = 0  # sentinel padding carries zero counts
+        ref = _aggregate_impl(jnp.asarray(kmers), jnp.asarray(c), 0)
+        got = _aggregate_impl(jnp.asarray(kmers), jnp.asarray(c), 22)
+        assert int(ref[2]) == int(got[2])
+        np.testing.assert_array_equal(np.asarray(ref[0]), np.asarray(got[0]))
+        np.testing.assert_array_equal(np.asarray(ref[1]), np.asarray(got[1]))
+
+    # a real key equal to 2^2k-1 must force the kv route and stay exact
+    kmers2 = np.array([5, (1 << 42) - 1, (1 << 42) - 1, 9], np.uint64)
+    counts2 = np.array([3, 4, 5, 1], np.uint32)
+    ref = _aggregate_impl(jnp.asarray(kmers2), jnp.asarray(counts2), 0)
+    got = _aggregate_impl(jnp.asarray(kmers2), jnp.asarray(counts2), 22)
+    assert int(ref[2]) == int(got[2]) == 3
+    np.testing.assert_array_equal(np.asarray(ref[0]), np.asarray(got[0]))
+    np.testing.assert_array_equal(np.asarray(ref[1]), np.asarray(got[1]))
+
+
+def test_drain_packed_overflow_falls_back_exactly():
+    """A run total that saturates the packed count field must trigger
+    the runtime kv fallback and stay exact (poly-A class repeats)."""
+    import jax.numpy as jnp
+
+    from sharkmer_tpu.ops.sorted_store import _aggregate_ingest_impl
+
+    # count_bits=20 -> cap 2^20-1; one key repeated 2^20+5 times
+    reps = (1 << 20) + 5
+    buf = np.concatenate([
+        np.full(reps, 7, np.uint64),
+        np.arange(100, 200, dtype=np.uint64),
+        np.full(123, (1 << 64) - 1, np.uint64),
+    ])
+    k_o, c_o, n_o = _aggregate_ingest_impl(jnp.asarray(buf), 20)
+    assert int(n_o) == 101
+    keys = np.asarray(k_o)[:101]
+    counts = np.asarray(c_o)[:101]
+    assert keys[0] == 7 and counts[0] == reps
+    np.testing.assert_array_equal(keys[1:], np.arange(100, 200))
+    assert (counts[1:] == 1).all()
+
+
+def test_ghosted_seed_never_splits_a_key_across_partitions():
+    """A ghosted first drain wider than one partition is cut into
+    partitions; a cut inside a key's run of ghost rows must not leave
+    the key in two partitions, where a later drain's counts would land
+    in the second one."""
+    k = 21
+    first = np.concatenate([
+        np.arange(100, 600, dtype=np.uint64),  # 500 singletons
+        np.full(60, 700, np.uint64),           # a run across the cut at 512
+        np.arange(800, 1264, dtype=np.uint64),
+    ])
+    second = np.concatenate([
+        np.full(5, 700, np.uint64), np.arange(2000, 2200, dtype=np.uint64),
+    ])
+    store = SortedKmerStore.create(k)
+    store.max_agg = 1 << 10  # partitions of 512 rows
+    store.insert_kmers(first)
+    store.insert_kmers(second)
+    want = collections.Counter(first.tolist()) + collections.Counter(
+        second.tolist()
+    )
+    assert len(store._flushed().parts) > 1
+    assert store.to_dict() == dict(want)
+    assert store.n_unique() == len(want)
+    expect = np.zeros(102, np.uint64)
+    for c in want.values():
+        expect[min(c, 101)] += 1
+    np.testing.assert_array_equal(store.histogram(100), expect)
